@@ -6,7 +6,7 @@ src/slam_compact_pose_ijrr (4,222 LoC) — maintaining a REDUCED pose graph by
 marginalizing out redundant (non-keyframe) poses, replacing their constraints
 with dense relative-pose priors between the surviving keyframes.
 
-TPU-native realization: the marginalization of a pruned pose is one small
+Device realization: the marginalization of a pruned pose is one small
 Schur complement on the dense sub-Hessian of (pruned pose, its two keyframe
 neighbors); the resulting information is re-expressed as an SE(2) relative
 edge between the neighbors (the compact-pose "synthetic measurement").  We

@@ -7,9 +7,12 @@ kernels are timed on the current backend and written as CSV:
 
     python scripts/kernel_bench.py [--out kernel_bench.csv] [--cpu]
 
-Covered kernels: batched Cholesky/TRSM (Pallas on TPU f32, lax reference
-otherwise), grouped segment reductions at Venice scale classes, the pair-SC
-mass kernel, small-block inverse, and the v3 fused GN iteration.
+Covered kernels: the batched frame Cholesky two ways at the v3 dense-frame
+shapes of sphere2500 (``chol_batched``: XLA's batched Cholesky with the
+frozen-pivot check, against ``_chol_panel``: the 8-wide panel loop), alone
+and inside one dense-frame v3 LM step; batched TRSM; grouped segment
+reductions at Venice scale classes; small-block inverse; the v3 fused GN
+iteration; device block-sparse products.
 """
 
 import argparse
@@ -48,7 +51,8 @@ def main():
     import numpy as np
     import jax.numpy as jnp
 
-    dev = str(jax.devices()[0])
+    d0 = jax.devices()[0]
+    dev = f"{d0.platform}:{d0.device_kind}"
     rows = []
 
     def rec(kernel, shape, dtype, secs, flops=None):
@@ -64,9 +68,9 @@ def main():
     from slampp_tpu.ops.dense_kernels import (
         chol_batched, trsm_lower_batched,
     )
-    from slampp_tpu.ops.small_blocks import inverse_spd_small
 
     rng = np.random.default_rng(0)
+    _chol_variants(rec, rng, args.reps)
     for dtype in (jnp.float32, jnp.float64):
         for K, M in ((64, 64), (16, 256), (4, 1024)):
             G = rng.normal(size=(K, M, M))
@@ -151,11 +155,69 @@ def main():
               reps=max(2, args.reps // 2))
     rec("bsm_gemm_device", f"{nnzb}x{nnzb} blocks {bs}x{bs}", "f64", t)
 
-    with open(args.out, "w", newline="") as fh:
+    _write(args.out, rows)
+
+
+def _write(path, rows):
+    with open(path, "w", newline="") as fh:
         w = csv.DictWriter(fh, fieldnames=list(rows[0].keys()))
         w.writeheader()
         w.writerows(rows)
-    print(f"wrote {args.out} ({len(rows)} rows)")
+    print(f"wrote {path} ({len(rows)} rows)")
+
+
+def _chol_variants(rec, rng, reps):
+    """(a) ``_chol_panel`` vs (b) ``chol_batched`` at sphere2500's dense
+    frames (K part frames of M, one Ms separator frame), f32 and f64, then
+    one dense-frame v3 LM step (mixed and f64) with each in place."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from slampp_tpu.io.datasets import make_sphere
+    from slampp_tpu.io.parser import build_system, parse_file
+    from slampp_tpu.linear.partitioned import PartitionedSolver
+    from slampp_tpu.ops import dense_kernels as dk
+
+    text, _ = make_sphere(n_poses=2500, seed=0)
+    with tempfile.NamedTemporaryFile("w", suffix=".g2o", delete=False) as fh:
+        fh.write(text)
+        path = fh.name
+    try:
+        system = build_system(parse_file(path))
+    finally:
+        os.unlink(path)
+    probe = PartitionedSolver(system)
+    probe.symbolic()
+    p = probe.plan
+    variants = {"b_xla_chol": dk.chol_batched,
+                "a_panel_loop": lambda A, clamp=1e-8: dk._chol_panel(A, clamp)}
+    for K, M in ((p.K, p.M), (1, p.Ms)):
+        G = rng.normal(size=(K, M, M))
+        A64 = G @ G.transpose(0, 2, 1) / M + np.eye(M)
+        for dtype in (jnp.float32, jnp.float64):
+            A = jnp.asarray(A64, dtype)
+            for name, fn in variants.items():
+                f = jax.jit(fn)
+                rec(f"chol_{name}", f"{K}x{M}x{M}", A.dtype.name,
+                    _time(f, A, reps=reps), flops=K * M**3 / 3)
+
+    graph = system.snapshot()
+    keep = dk.chol_batched
+    try:
+        for name, fn in variants.items():
+            dk.chol_batched = fn  # traced into the fresh solver's step
+            for mixed in (True, False):
+                ps = PartitionedSolver(system, refine_iters=2, mixed_precision=mixed)
+                ps.symbolic()
+                assert ps.plan.ch_ok == 0
+                t = _time(lambda g: ps.damped_step(g, 1e-3)[2], graph, reps=reps)
+                rec(f"v3_dense_frame_lm_step_{name}", "sphere2500",
+                    "mixed" if mixed else "f64", t)
+    finally:
+        dk.chol_batched = keep
 
 
 if __name__ == "__main__":

@@ -113,7 +113,7 @@ def main():
             "NON-REPLICATION: per-device work shrinks with the mesh "
             "(step time stays ~flat 1->4 devices instead of growing "
             "~linearly as it would if each device re-did the full "
-            "computation).  Real-ICI scaling needs real chips."
+            "computation).  Real scaling needs real cards."
         ),
         "results": results,
     }

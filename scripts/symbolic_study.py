@@ -3,7 +3,7 @@
 
 The v2 engine's wall time per sweep is ~ n_levels * per_level_cost, where
 per_level_cost is driven by the PADDED widths (max_ud/max_uo/max_off across
-levels).  This picks the config before spending TPU compile time.
+levels).  This picks the config before spending device compile time.
 """
 import os
 import sys

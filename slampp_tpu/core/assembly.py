@@ -87,7 +87,7 @@ def assemble_dense(graph: GraphArrays) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.nd
 
     H is (N, N), g is (N,) where N = graph.state_dim.  Internally scatters into
     a padded (N + dmax) buffer so const/padding contributions land in dummy
-    rows and are sliced off — the TPU version of the reference's "reduce into
+    rows and are sliced off — the device version of the reference's "reduce into
     temp blocks keyed by pointer" plan.
     """
     N = graph.state_dim

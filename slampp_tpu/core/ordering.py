@@ -115,7 +115,7 @@ def nested_dissection_ordering(
 ) -> np.ndarray:
     """Nested-dissection ordering via recursive BFS bisection.
 
-    The TPU-motivated ordering: ND separator trees are shallow and wide, so
+    The accelerator-motivated ordering: ND separator trees are shallow and wide, so
     the levelled factorization (core/sparse_chol.py) runs few, fat batched
     steps instead of the deep chains minimum-degree produces on trajectory
     graphs.  (The reference gets this from METIS inside CHOLMOD; here a

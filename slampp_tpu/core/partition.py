@@ -2,9 +2,9 @@
 
 Splits the fine block graph into K parts + one global separator such that no
 edge couples interiors of two different parts.  Part interiors are then
-eliminated as independent dense frames (batched on the MXU) and the separator
-solves as one dense Schur-complement core — the "Schur-eliminate everything
-sparse into a dense core" design SURVEY.md §7 sanctions for TPU, generalizing
+eliminated as independent dense frames (one batched factorization) and the
+separator solves as one dense Schur-complement core — the "Schur-eliminate
+everything sparse into a dense core" design SURVEY.md §7 sanctions, generalizing
 the reference's Schur solver (include/slam/LinearSolver_Schur.h:1424) from
 {cameras, landmarks} to {separator, part interiors}.
 

@@ -3,7 +3,7 @@ solves as fixed-shape jitted programs.
 
 Capability parity with the reference's native block Cholesky
 (``CUberBlockMatrix::CholeskyOf`` src/slam/BlockMatrix.cpp:9547) and block
-triangular solves (BlockMatrix.h:3284-3580).  The TPU-native design: the host
+triangular solves (BlockMatrix.h:3284-3580).  The device design: the host
 symbolic plan (core/symbolic.py) levels the elimination tree; one
 ``lax.scan`` over levels performs, per level, (a) all pending outer-product
 updates as one batched GEMM + scatter-add, (b) all diagonal factorizations as
@@ -114,7 +114,7 @@ def factorize(dp: DevicePlan, vals: jnp.ndarray, clamp: float = 0.0) -> jnp.ndar
         upd = jnp.einsum("eij,ekj->eik", a, b, precision=lax.Precision.HIGHEST)
         mask = (upd_dst < dp.nnzb)[:, None, None]
         # triples are pre-sorted by destination (core/symbolic.py) — the
-        # sorted hint lowers to a faster TPU scatter-add
+        # sorted hint lets XLA lower a cheaper scatter-add
         vals = vals.at[upd_dst].add(
             jnp.where(mask, -upd, 0.0), indices_are_sorted=True
         )

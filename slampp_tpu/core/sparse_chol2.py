@@ -1,7 +1,7 @@
 """Scatter-free level-windowed block Cholesky (the v2 engine).
 
-The v1 engine (core/sparse_chol.py) spends its time in TPU scatter-adds,
-which serialize per index.  v2 eliminates every scatter from the numeric
+The v1 engine (core/sparse_chol.py) spends its time in scatter-adds, which
+serialize on conflicting indices.  v2 eliminates every scatter from the numeric
 phase by construction:
 
   * block columns are renumbered so each elimination-tree level occupies a
@@ -11,7 +11,7 @@ phase by construction:
   * per level, all writes are `dynamic_update_slice` on contiguous windows;
   * conflicting update contributions are reduced with SORTED segment sums
     computed as differences of a prefix sum (cumsum), not scatter-adds;
-  * reads remain gathers (fast on TPU).
+  * reads remain gathers.
 
 The same schedule drives the forward/backward triangular solves.  Host
 planning lives in :func:`plan_v2`; the device functions are
@@ -20,8 +20,8 @@ planning lives in :func:`plan_v2`; the device functions are
 refinement, as in v1).
 
 Reference parity: this is still the reference's blockwise Cholesky
-(BlockMatrix.cpp:9547) — re-architected a second time for TPU memory
-semantics.
+(BlockMatrix.cpp:9547) — re-architected a second time around scatter-free
+device memory access.
 """
 
 from __future__ import annotations

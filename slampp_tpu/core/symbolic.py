@@ -1,7 +1,7 @@
 """Host-side symbolic block Cholesky: elimination tree, fill pattern, level
 schedule, and the scan-padded index plans consumed by the device kernels.
 
-This is the TPU-native replacement for the reference's symbolic machinery
+This is the device-program replacement for the reference's symbolic machinery
 (``Build_EliminationTree`` src/slam/BlockMatrix.cpp:9403 and the pattern
 analysis inside ``CholeskyOf`` :9547): all pointer-chasing happens here, once
 per graph structure, producing fixed-shape integer arrays; the numeric
@@ -145,7 +145,7 @@ def symbolic_cholesky(n: int, pairs: Sequence[Tuple[int, int]]) -> CholeskyPlan:
                 upd_a[lv].append(slot_of[(i, k)])
                 upd_b[lv].append(slot_of[(j, k)])
     # sort each level's triples by destination slot: sorted scatter indices
-    # lower to much faster TPU scatter-adds (indices_are_sorted)
+    # let XLA lower cheaper scatter-adds (indices_are_sorted)
     for lv in range(n_levels):
         if upd_dst[lv]:
             perm = np.argsort(np.asarray(upd_dst[lv]), kind="stable")

@@ -7,7 +7,7 @@ solver used for condition-number/observability analysis
 eigenpairs via the shift-invert mode backed by the framework's own
 factorization (the reference uses its block LDLT).
 
-TPU-native: Lanczos with full reorthogonalization as a jitted fixed-iteration
+On the device: Lanczos with full reorthogonalization as a jitted fixed-iteration
 loop over the operator (dense matvec or user-supplied matvec); LOBPCG from
 jax.experimental for blocks of extremal eigenpairs where applicable.
 """
@@ -108,7 +108,7 @@ def condition_number(H: jnp.ndarray, iters: int = 80) -> float:
 #
 # The reference operates on the sparse block matrix at full problem size
 # (CSymEigsSolver over CUberBlockMatrix, Eigenvalues.h:179; shift-invert
-# through the block LDLT, :364).  The TPU analog: a matvec over the
+# through the block LDLT, :364).  The device analog: a matvec over the
 # assembled fine-block lambda (never densified) and shift-invert through the
 # partitioned (v3) factorization.
 

@@ -9,7 +9,7 @@ bit-for-bit at f64.
 
 All functions are written for single poses and are ``jax.vmap``-able over
 leading batch dimensions; solvers always call them vmapped over edge arrays
-(the TPU-native replacement for the reference's OpenMP ``For_Each_Parallel``).
+(the device replacement for the reference's OpenMP ``For_Each_Parallel``).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ from the first referencing edge, const vertices, an automatic unary (gauge)
 factor derived from the first edge, and derivation of the block-size structure
 consumed by the solvers.
 
-TPU-first inversion: instead of pointer-rich pools of C++ objects, vertices and
+Device-first inversion: instead of pointer-rich pools of C++ objects, vertices and
 edges live in per-type struct-of-arrays NumPy buffers on host; ``snapshot()``
 freezes them into a :class:`GraphArrays` pytree of fixed-shape device arrays
 (optionally padded to capacity buckets so that incremental runs reuse compiled

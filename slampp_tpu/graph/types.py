@@ -1,4 +1,4 @@
-"""Vertex/edge *type* registry — the TPU-native replacement for the reference's
+"""Vertex/edge *type* registry — the JAX replacement for the reference's
 compile-time typelists.
 
 The reference (``include/slam/FlatSystem.h:1931-2010``) derives Jacobian/Hessian

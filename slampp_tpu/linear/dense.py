@@ -1,10 +1,11 @@
 """Dense SPD Cholesky solver.
 
 Reference analog: ``CLinearSolver_DenseEigen`` (LinearSolver_Schur.h:1046) and
-the dense-block fallback ``Cholesky_Dense`` (BlockMatrix.h:3617).  On TPU the
-dense factorization of small/medium systems (pose-graph cores, Schur-reduced
-camera systems) maps straight onto the MXU via XLA's blocked Cholesky, which is
-why this is a first-class solver here rather than a fallback.
+the dense-block fallback ``Cholesky_Dense`` (BlockMatrix.h:3617).  On the
+device the dense factorization of small/medium systems (pose-graph cores,
+Schur-reduced camera systems) is one library call (XLA's Cholesky: cuSOLVER on
+the GPU), which is why this is a first-class solver here rather than a
+fallback.
 """
 
 from __future__ import annotations

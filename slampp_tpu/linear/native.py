@@ -43,8 +43,8 @@ class NativeBlockSolver:
         ``panel`` consecutive ordered block-columns factor as dense P x P
         panels (P = panel*bs) on a much shallower elimination tree.
         ``mixed_precision`` factors in f32 with static damping + f64
-        iterative refinement — the fast path on TPU, where f64 matmuls are
-        emulated (SURVEY.md §7 hard part 3).  ``engine``: "v1" (packed
+        iterative refinement (SURVEY.md §7 hard part 3; unmeasured against
+        plain f64 on the GPU, ROADMAP 3.2).  ``engine``: "v1" (packed
         scatter-add levels) or "v2" (scatter-free level windows +
         prefix-sum segment reduction, core/sparse_chol2.py)."""
         self.system = system

@@ -1,17 +1,17 @@
 """Partitioned dense-core linear solver (the v3 engine).
 
-The TPU-first inversion of sparse Cholesky: instead of a level-scheduled
+An accelerator-first inversion of sparse Cholesky: instead of a level-scheduled
 sparse factorization (deep sequential scan, core/sparse_chol2.py), partition
 the block graph into K parts + a separator (core/partition.py), then
 
   1. assemble the fine block lambda scatter-free (core/block_assembly.py),
   2. gather part frames A_k (K, M, M), couplings U_k (K, M, S), and the
      dense separator system A_ss,
-  3. eliminate every part interior with ONE batched Pallas Cholesky + TRSM
-     (ops/dense_kernels.py) — all parts in parallel on the MXU,
+  3. eliminate every part interior with ONE batched Cholesky + TRSM
+     (ops/dense_kernels.py) — all parts in parallel,
   4. form the separator Schur complement SC = A_ss - sum_k U_k^T A_k^-1 U_k
      with a batched GEMM + sorted segment reduction,
-  5. factor SC with a single-instance Pallas Cholesky and back-substitute.
+  5. factor SC with a single-instance Cholesky and back-substitute.
 
 Serial depth is ~3 kernel launches instead of ~100 scan levels.  Numerics:
 f32 frames with equilibration + pivot clamping, f64 iterative refinement on
@@ -43,10 +43,10 @@ HI = jax.lax.Precision.HIGHEST
 
 import os as _os
 
-# chain mode's separator core is a SINGLE (Ms, Ms) factorization: XLA's
-# native cholesky/triangular_solve beat the batched Pallas kernels there
-# (measured 141 -> 163 it/s on manhattan3500); the Pallas kernels keep the
-# batched (K, M, M) dense-frame path where they win
+# chain mode's separator core is a SINGLE (Ms, Ms) factorization, done with
+# XLA's cholesky/triangular_solve directly; SLAMPP_CHAIN_SEP_XLA=0 routes it
+# through ops/dense_kernels (the frozen-pivot wrapper) instead.  Which is
+# faster on the GPU is unmeasured (ROADMAP 1.6).
 _CHAIN_SEP_XLA = _os.environ.get("SLAMPP_CHAIN_SEP_XLA", "1") == "1"
 
 _CR_BASE = int(_os.environ.get("SLAMPP_CR_BASE", "8"))
@@ -56,10 +56,9 @@ _CR_BASE = int(_os.environ.get("SLAMPP_CR_BASE", "8"))
 
 def _small_inv(A):
     """Batched inverse of tiny SPD blocks (..., bs, bs).  Closed forms for
-    bs <= 3: jnp.linalg.inv lowers to batched LU on TPU, which measured
-    ~2 ms per cyclic-reduction level at (55, 32, 3, 3) — the adjugate
-    fuses into the surrounding einsums instead (same reason as
-    parallel/distributed_ba._inv3)."""
+    bs <= 3 (and a blocked 2x2-of-3x3 form for bs = 6) fuse into the
+    surrounding einsums instead of lowering to a batched LU; whether that
+    still wins on the GPU is unmeasured (ROADMAP re-decide list)."""
     bs = A.shape[-1]
     if bs == 1:
         return 1.0 / A
@@ -623,8 +622,8 @@ def _cr_build(D, Lw):
     """Batched block cyclic reduction hierarchy for SPD block-tridiagonal
     systems.  D (K, m, bs, bs) diagonal blocks, Lw (K, m, bs, bs) with
     Lw[:, i] = A[i+1, i] (Lw[:, m-1] = 0); m a power of two (identity/zero
-    padding decouples).  log2(m) levels of BATCHED tiny-block einsums — the
-    TPU-native substitute for a sequential banded factorization (parallel
+    padding decouples).  log2(m) levels of BATCHED tiny-block einsums — a
+    parallel substitute for a sequential banded factorization (parallel
     over parts AND over chain positions; reference economics:
     BlockMatrix.h:3663 CholeskyOf on the tridiagonal lambda)."""
     levels = []
@@ -858,7 +857,7 @@ def _factor32(p: V3Plan, vals32, rhs32, sc_prior=None, gs_prior=None):
     if gs_prior is not None:
         gs = gs + gs_prior.astype(gs.dtype)
 
-    L = dk.chol_batched(A)  # (K, M, M) pallas
+    L = dk.chol_batched(A)  # (K, M, M)
     B = jnp.concatenate([U, gk[..., None]], -1)
     B = jnp.pad(B, ((0, 0), (0, 0), (0, (-B.shape[-1]) % 8)))
     W = dk.trsm_lower_batched(L, B)  # (K, M, S+pad)
@@ -1032,9 +1031,8 @@ def _v3_solve_refined(p: V3Plan, vals64, b64, refine: int, damping_rel: float,
 
 def _v3_gn_step_impl(graph: GraphArrays, bp, p: V3Plan, refine: int,
                      damping_rel: float, mixed: bool = True):
-    # mixed mode assembles the Hessian blocks directly in f32 (4x faster on
-    # TPU where f64 is emulated); rhs/chi2 stay f64 so the GN fixed point is
-    # unchanged.  _v3_solve_refined handles f32 inputs transparently.
+    # mixed mode assembles the Hessian blocks directly in f32; rhs/chi2 stay
+    # f64 so the GN fixed point is unchanged.  _v3_solve_refined handles f32 inputs transparently.
     vals, rhs, chi2 = block_assembly.assemble_blocks_sorted(
         graph, bp, hessian_f32=mixed
     )

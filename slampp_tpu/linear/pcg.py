@@ -3,8 +3,8 @@ Gauss-Newton system.
 
 Capability parity with the reference's experimental ``CNonlinearSolver_SPCG``
 (include/slam/NonlinearSolver_SPCG.h:61, subgraph-preconditioned CG on A).
-On TPU, CG is the latency-friendly incremental-mode workhorse: every
-iteration is one dense matvec (MXU) + vector ops, with no sequential
+On the device, CG is the latency-friendly incremental-mode workhorse: every
+iteration is one dense matvec + vector ops, with no sequential
 elimination-tree dependency, and the whole solve is one ``lax.while_loop``.
 """
 

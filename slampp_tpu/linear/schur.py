@@ -4,15 +4,15 @@ Capability parity with ``CLinearSolver_Schur`` (include/slam/
 LinearSolver_Schur.h:1424) and its GPU backend (LinearSolver_Schur_GPU.cpp):
 partition the system into landmark-like variables (eliminated) and the rest
 (the reduced "camera" system), invert the block-diagonal landmark part in a
-single batched kernel, form SC = A - B D^-1 B^T as batched dense GEMMs on the
-MXU, factor the dense SC, and back-substitute the landmarks.
+single batched kernel, form SC = A - B D^-1 B^T as batched dense GEMMs,
+factor the dense SC, and back-substitute the landmarks.
 
 The reference's guided ordering by vertex type/dimension
 (schur_detail::CGuidedOrdering_Helper, LinearSolver_Schur.h:725) maps here to
 the ``is_landmark`` flag on registered vertex types; the symbolic phase
 (`build_schur_plan`) runs on host once per graph structure, the numeric phase
-is a fixed-shape jitted program.  On TPU this *is* the default BA path — the
-role the CUDA/CULA offload plays in the reference (SURVEY.md §2.2).
+is a fixed-shape jitted program.  On the device this *is* the default BA
+path — the role the CUDA/CULA offload plays in the reference (SURVEY.md §2.2).
 """
 
 from __future__ import annotations
@@ -131,9 +131,9 @@ def schur_solve(H: jnp.ndarray, g: jnp.ndarray, plan: SchurPlan, alpha=0.0):
     B = H[cam[:, None, None], rows[None, :, :]]
     A = H[cam[:, None], cam[None, :]] + alpha * jnp.eye(cam.shape[0], dtype=H.dtype)
 
-    Dinv = jnp.linalg.inv(D)  # batched small inverses (VPU-friendly)
+    Dinv = jnp.linalg.inv(D)  # batched small inverses
     BDinv = jnp.einsum("cld,lde->cle", B, Dinv)
-    # SC = A - B D^-1 B^T — one big MXU contraction over (landmark, d)
+    # SC = A - B D^-1 B^T — one big contraction over (landmark, d)
     SC = A - jnp.einsum("cld,kld->ck", BDinv, B)
 
     g_c = g[cam]

@@ -2,7 +2,7 @@
 
 Capability parity role: the reference's third-party solver backends
 (CSparse/CXSparse/CHOLMOD, include/slam/LinearSolver_C*.h) — an independent
-elementwise sparse factorization used for cross-checking the native TPU
+elementwise sparse factorization used for cross-checking the native device
 solver (SURVEY.md §2.2 explicitly sanctions SciPy in this role) and as a
 host fallback for graphs whose structure the device solver does not yet
 cover.  Supports cached symbolic factorization like the blockwise API

@@ -7,12 +7,12 @@ factorization (the reference computes a Jarnik/Prim spanning tree,
 :395, splits A = [A1; A2] with A1 the tree edges, and preconditions with
 A1's factorization, :573-668).
 
-TPU-first design (not a translation of the sparse-LU-on-A original):
+Device-first design (not a translation of the sparse-LU-on-A original):
 
 * the spanning tree is eliminated CHILDREN-BEFORE-PARENTS, which has ZERO
   Cholesky fill and a level schedule equal to tree depth — the v2
   scatter-free factor engine (core/sparse_chol2.py) runs it as a handful of
-  batched level sweeps, all MXU-friendly;
+  batched level sweeps of dense block products;
 * the tree system is assembled from the SAME GraphArrays as the full
   Hessian via an edge-masked block plan (core/block_assembly.py
   ``edge_mask``) — no second edge evaluation, masked contributions just

@@ -7,7 +7,7 @@ complement, landmark block-diagonal marginals recovered from them:
   Sigma_cc       = SC^-1
   Sigma_ll(diag) = C^-1 + C^-1 U^T Sigma_cc U C^-1   (per-landmark blocks)
 
-On TPU both terms are batched dense contractions over landmark blocks.
+On the device both terms are batched dense contractions over landmark blocks.
 """
 
 from __future__ import annotations

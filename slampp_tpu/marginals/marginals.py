@@ -12,7 +12,7 @@ Capability parity with ``CMarginals`` (include/slam/Marginals.h:70):
   * the CMarginalCovariance cache (:6914) — edge-count watermark + can-update
     flag.
 
-On TPU the dense solve path is MXU-native; the sparse recursive (Golub/
+On the device the dense solve path is one library factorization; the sparse recursive (Golub/
 Plemmons) algorithm on the block factor is a planned optimization on the
 same level-schedule machinery as core/sparse_chol.py.
 """

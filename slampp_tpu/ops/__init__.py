@@ -1,1 +1,1 @@
-"""Low-level batched block kernels (the framework's BLAS; Pallas/XLA)."""
+"""Low-level batched block kernels (the framework's BLAS, in jax.numpy/lax)."""

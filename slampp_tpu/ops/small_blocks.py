@@ -1,10 +1,10 @@
 """Unrolled batched kernels for tiny SPD blocks (3x3, 6x6, ...).
 
-XLA's generic ``lax.linalg.cholesky``/``triangular_solve`` lower to
-loop-heavy code that is slow for large batches of tiny blocks on TPU; these
-unrolled forms are straight-line VPU element-wise math over the batch
-dimension (the role of the reference's compile-time fixed-block-size FBS
-kernels, include/slam/BlockMatrixFBS.h).
+Unrolled forms are straight-line element-wise math over the batch dimension
+(the role of the reference's compile-time fixed-block-size FBS kernels,
+include/slam/BlockMatrixFBS.h) in place of batched ``lax.linalg.cholesky``/
+``triangular_solve`` calls on tiny blocks.  Whether they still beat the
+library calls on the GPU is unmeasured (ROADMAP re-decide list).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference is a single-process OpenMP solver; its "reduction plans"
 (NonlinearSolver_Lambda_Base.h:113,524) partition per-edge Hessian
-contributions across threads.  The TPU-native generalization mandated by
+contributions across threads.  The device-mesh generalization mandated by
 BASELINE.json shards *edges* (and, for BA, landmarks) across devices:
 
   per-shard local lambda/eta assembly  ->  psum over the mesh  ->
@@ -10,11 +10,12 @@ BASELINE.json shards *edges* (and, for BA, landmarks) across devices:
 
 which is the honest analog of data parallelism for this workload: the model
 (state vector) is small and replicated, the measurements are the big axis.
-Collectives ride ICI via one ``psum`` of the reduced system per iteration.
+Collectives are one ``psum`` of the reduced system per iteration (NCCL over
+NVLink on GPUs).
 
 Implemented with ``shard_map`` so the communication pattern is explicit and
-the same code runs on a virtual CPU mesh (tests / driver dry-run) and on a
-real TPU slice.
+the same code runs on a virtual CPU mesh (tests / driver dry-run) and on
+real cards.
 """
 
 from __future__ import annotations

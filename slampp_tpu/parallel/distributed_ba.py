@@ -3,7 +3,7 @@
 The BASELINE.json north-star capability (absent in the reference, which is
 single-process): partition landmarks and their observations across devices;
 each shard assembles its local contributions, the reduced camera system is
-psum-ed over the mesh (one collective per iteration riding ICI), factored
+psum-ed over the mesh (one collective per iteration), factored
 replicated, and landmarks back-substitute shard-locally:
 
   per shard:  H_cc += sum_obs J_c^T W J_c        (partial, psum-ed)
@@ -15,7 +15,7 @@ replicated, and landmarks back-substitute shard-locally:
   local:      dx_l = D_l^-1 (g_l - U_l^T dx_c)
 
 This is SURVEY.md §2.12's mandated design; the same code runs on the virtual
-CPU mesh (tests / driver dry-run) and real TPU slices.
+CPU mesh (tests / driver dry-run) and on real cards.
 """
 
 from __future__ import annotations
@@ -37,9 +37,8 @@ from slampp_tpu.linear.dense import solve_spd
 
 def _inv3(D):
     """Closed-form batched 3x3 inverse for (n, 3, 3) arrays (adjugate/det).
-    The TPU compiler has no f64 LuDecomposition (jnp.linalg.inv lowers to LU
-    there), and the landmark blocks are SPD 3x3 — closed form is exact and
-    fuses into the surrounding einsums."""
+    The landmark blocks are SPD 3x3: the closed form is exact and fuses into
+    the surrounding einsums instead of lowering to a batched LU."""
     a, b, c = D[:, 0, 0], D[:, 0, 1], D[:, 0, 2]
     d, e, f = D[:, 1, 0], D[:, 1, 1], D[:, 1, 2]
     g, h, i = D[:, 2, 0], D[:, 2, 1], D[:, 2, 2]
@@ -250,22 +249,15 @@ def _big_specs(axis: str, n_c=0, per=0, anchor_cam=0, anchor_lm=0) -> BigBAShard
 
 
 def build_big_ba_shards(system, mesh: Mesh, axis: str = "lm") -> BigBAShards:
-    """Host symbolic phase: partition landmarks contiguously over the mesh and
-    build per-shard sorted-segment observation/pair plans."""
-    n_dev = mesh.shape[axis]
+    """Host symbolic phase from a BA GraphSystem (cam/xyz + edge_p2c): see
+    :func:`build_big_ba_shards_arrays`."""
     cam_ids = sorted(v for v, (t, _) in system.vertex_index.items() if t == "cam")
     lm_ids = sorted(v for v, (t, _) in system.vertex_index.items() if t == "xyz")
     cam_pos = {v: i for i, v in enumerate(cam_ids)}
     lm_pos = {v: i for i, v in enumerate(lm_ids)}
-    n_c, n_l = len(cam_ids), len(lm_ids)
-    per = (n_l + n_dev - 1) // n_dev
 
     cam_states = np.stack([system.vertex_state(v) for v in cam_ids])
-    lm_states = np.zeros((n_dev * per, 3))
-    lm_valid = np.zeros(n_dev * per, bool)
-    for i, v in enumerate(lm_ids):
-        lm_states[i] = system.vertex_state(v)
-        lm_valid[i] = True
+    lm_states = np.stack([system.vertex_state(v) for v in lm_ids])
 
     rec = system._edges["edge_p2c"]
     m = len(rec["vids"])
@@ -277,6 +269,42 @@ def build_big_ba_shards(system, mesh: Mesh, axis: str = "lm") -> BigBAShards:
         ol[e] = lm_pos[p]
     uv = np.asarray(rec["meas"], float).reshape(m, 2)
     info = np.asarray(rec["sigma_inv"], float).reshape(m, 2, 2)
+
+    av = system._unary_anchor
+    if av in cam_pos:
+        anchor_cam, anchor_lm = cam_pos[av], -1
+    elif av in lm_pos:
+        anchor_cam, anchor_lm = -1, lm_pos[av]
+    else:
+        anchor_cam, anchor_lm = 0, -1
+    return build_big_ba_shards_arrays(
+        cam_states, lm_states, oc, ol, uv, info, mesh, axis,
+        anchor_cam=anchor_cam, anchor_lm=anchor_lm,
+    )
+
+
+def build_big_ba_shards_arrays(cam_states, lm_init, oc, ol, uv, info,
+                               mesh: Mesh, axis: str = "lm",
+                               anchor_cam: int = 0,
+                               anchor_lm: int = -1) -> BigBAShards:
+    """Host symbolic phase from raw observation arrays (the Venice-scale
+    entry point, like ``BigBASolver.from_arrays``): partition landmarks
+    contiguously over the mesh and build per-shard sorted-segment
+    observation/pair plans.  The gauge anchor defaults to camera 0, as in
+    ``build_ba_schur_plan_arrays``."""
+    n_dev = mesh.shape[axis]
+    n_c, n_l = len(cam_states), len(lm_init)
+    per = (n_l + n_dev - 1) // n_dev
+    cam_states = np.asarray(cam_states, float)
+    lm_states = np.zeros((n_dev * per, 3))
+    lm_states[:n_l] = lm_init
+    lm_valid = np.zeros(n_dev * per, bool)
+    lm_valid[:n_l] = True
+
+    oc = np.asarray(oc, np.int64)
+    ol = np.asarray(ol, np.int64)
+    uv = np.asarray(uv, float).reshape(-1, 2)
+    info = np.asarray(info, float).reshape(-1, 2, 2)
     order = np.argsort(ol, kind="stable")
     oc, ol, uv, info = oc[order], ol[order], uv[order], info[order]
     shard_of = ol // per
@@ -339,14 +367,6 @@ def build_big_ba_shards(system, mesh: Mesh, axis: str = "lm") -> BigBAShards:
         pair_flat[s, : len(flat_l[s])] = flat_l[s]
         pair_starts[s, : len(ps_l[s])] = ps_l[s]
         pair_ends[s, : len(pn_l[s])] = pn_l[s]
-
-    av = system._unary_anchor
-    if av in cam_pos:
-        anchor_cam, anchor_lm = cam_pos[av], -1
-    elif av in lm_pos:
-        anchor_cam, anchor_lm = -1, lm_pos[av]
-    else:
-        anchor_cam, anchor_lm = 0, -1
 
     shards = BigBAShards(
         jnp.asarray(cam_states),
@@ -697,35 +717,25 @@ def build_lm_pair_plan(shards: BigBAShards):
     observation pairs (local indices), segmented per landmark.  Returns
     sharded (n_dev, ...) arrays (qe, qf, qs, qn) where landmark slot l of a
     shard owns pair rows [qs[l], qs[l]+qn[l])."""
-    ls = np.asarray(shards.lm_starts)
-    le = np.asarray(shards.lm_ends)
+    ls = np.asarray(shards.lm_starts).astype(np.int64)
+    le = np.asarray(shards.lm_ends).astype(np.int64)
     n_dev, per = ls.shape
-    qe_all, qf_all, qs_all, qn_all = [], [], [], []
-    for d in range(n_dev):
-        qe, qf, qs, qn = [], [], [], []
-        for l in range(per):
-            a, b = int(ls[d, l]), int(le[d, l])
-            qs.append(len(qe))
-            qn.append((b - a) * (b - a))
-            for e in range(a, b):
-                for f in range(a, b):
-                    qe.append(e)
-                    qf.append(f)
-        qe_all.append(qe)
-        qf_all.append(qf)
-        qs_all.append(qs)
-        qn_all.append(qn)
-    q_max = max(1, max(len(q) for q in qe_all))
+    deg = le - ls
+    QN = deg * deg  # ordered pairs (e, f) per landmark, e-major
+    QS = np.cumsum(QN, axis=1) - QN
+    q_max = max(1, int(QN.sum(axis=1).max()))
     QE = np.zeros((n_dev, q_max), np.int32)
     QF = np.zeros((n_dev, q_max), np.int32)
     QV = np.zeros((n_dev, q_max), bool)
     for d in range(n_dev):
-        n = len(qe_all[d])
-        QE[d, :n] = qe_all[d]
-        QF[d, :n] = qf_all[d]
+        n = int(QN[d].sum())
+        lm = np.repeat(np.arange(per), QN[d])
+        t = np.arange(n) - QS[d][lm]  # pair rank within its landmark
+        QE[d, :n] = ls[d][lm] + t // deg[d][lm]
+        QF[d, :n] = ls[d][lm] + t % deg[d][lm]
         QV[d, :n] = True
-    QS = np.asarray(qs_all, np.int32)
-    QN = np.asarray(qn_all, np.int32)
+    QS = QS.astype(np.int32)
+    QN = QN.astype(np.int32)
     return (jnp.asarray(QE), jnp.asarray(QF), jnp.asarray(QV),
             jnp.asarray(QS), jnp.asarray(QS + QN))
 

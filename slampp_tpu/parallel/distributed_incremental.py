@@ -13,7 +13,7 @@ Cholesky/TRSM program per shard — the multi-host analog of the reference's
 OpenMP block factorizations.
 
 The same code runs on the virtual CPU mesh (tests, driver dry-run) and on
-real TPU slices.  Solvers can route their ``_freeze_chunk`` batches here
+real cards.  Solvers can route their ``_freeze_chunk`` batches here
 when a mesh is available; the sequential NumPy path remains the default on
 a single host (latency-bound, see solvers/fastl.py).
 """

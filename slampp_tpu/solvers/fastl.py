@@ -1,6 +1,6 @@
 """FastL-role incremental solver: resident live system + resumed Cholesky.
 
-This is the TPU-framework's answer to ``CNonlinearSolver_FastL``
+This is the framework's answer to ``CNonlinearSolver_FastL``
 (``include/slam/NonlinearSolver_FastL.h:46``): the reference's headline
 capability is CHEAP PER-STEP updates — it maintains the R factor of the
 ordered lambda and, per incremental step, recomputes only the columns from
@@ -156,19 +156,9 @@ class FastLSolver(WindowedIncrementalSolver):
                  **kw):
         kw.setdefault("live_on_host", True)
         super().__init__(system, **kw)
-        # the hot path is many SMALL dense LAPACK calls; threaded OpenBLAS
-        # is pathologically slow for 100-600-dim factorizations on small
-        # VMs (measured 0.12 ms -> 235 ms for chol(150) with 2 spinning
-        # threads).  Pin BLAS to one thread for the solver's lifetime —
-        # single-threaded was faster at EVERY size in this range.
-        try:
-            import threadpoolctl
-
-            self._blas_ctx = threadpoolctl.threadpool_limits(
-                limits=1, user_api="blas"
-            )
-        except Exception:
-            self._blas_ctx = None
+        # the hot path is many SMALL dense LAPACK calls, which threaded
+        # OpenBLAS can make far slower; processes that run this engine set
+        # OPENBLAS_NUM_THREADS=1 before numpy loads (bench.py, chip_smoke.py)
         self.tail = 0                      # resumed factor replaces tail path
         self.relin_update_threshold = relin_update_threshold
         self._lin_stale = True

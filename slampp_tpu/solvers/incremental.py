@@ -1,13 +1,14 @@
-"""Incremental (online) solver: chunked relinearization suited to TPU.
+"""Incremental (online) solver: chunked relinearization suited to a device.
 
 Reference analogs: the incremental policies of all nonlinear solvers
 (``TIncrementalSolveSetting``, IncrementalPolicy.h:172; step scheduler
 ``t_Incremental_Step``, NonlinearSolver_Base.h:557) and the FastL solver's
 per-step economics (NonlinearSolver_FastL.h:954).
 
-TPU-first inversion (SURVEY.md §7 stage 6, sanctioned by BASELINE.json):
+Device-first inversion (SURVEY.md §7 stage 6, sanctioned by BASELINE.json):
 instead of FastL's pointer-level incremental R surgery (50 us CPU updates
-that a TPU cannot match at per-edge latency), edges stream into the graph
+that a jitted device program cannot match at per-edge latency), edges stream
+into the graph
 and every ``solve_period`` new *vertices* the solver runs a bounded
 Gauss-Newton relinearization on the whole (bucket-padded) graph.  Capacity
 buckets keep the jit cache warm as the graph grows: shapes only change when

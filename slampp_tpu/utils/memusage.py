@@ -1,8 +1,8 @@
 """Process and device memory usage reporting.
 
 Capability parity with ``CProcessMemInfo::n_MemoryUsage``
-(include/slam/MemUsage.h:54,76) plus the TPU-era addition: per-device HBM
-stats from the JAX runtime.
+(include/slam/MemUsage.h:54,76) plus per-device memory stats from the JAX
+runtime.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def peak_memory_usage() -> int:
 
 
 def device_memory_stats(device=None) -> Optional[Dict]:
-    """HBM usage of a JAX device, if the backend exposes it."""
+    """Memory usage of a JAX device, if the backend exposes it."""
     import jax
 
     d = device or jax.devices()[0]
@@ -53,5 +53,5 @@ def format_memory_report() -> str:
     if stats:
         used = stats.get("bytes_in_use", 0) / 1048576.0
         limit = stats.get("bytes_limit", 0) / 1048576.0
-        out.append(f"device HBM: {used:.1f} / {limit:.1f} MB")
+        out.append(f"device memory: {used:.1f} / {limit:.1f} MB")
     return "; ".join(out)

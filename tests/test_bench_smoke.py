@@ -18,7 +18,6 @@ _BENCH = os.path.join(os.path.dirname(__file__), "..", "bench.py")
 
 _TINY_ENV = {
     "BENCH_PLATFORM": "cpu",
-    "BENCH_WARM_PROBE": "0",
     # venice: ~80 cams / 600 points / short tracks
     "BENCH_VENICE_CAMS": "80",
     "BENCH_VENICE_POINTS": "600",

@@ -159,6 +159,30 @@ def test_batched_cholesky_identity_pad():
     np.testing.assert_allclose(L, np.linalg.cholesky(A), atol=1e-8)
 
 
+def test_batched_cholesky_frozen_pivot():
+    """A rank-deficient frame (gauge mode) freezes its failing pivots: the
+    factor stays finite, the frozen columns' multipliers are ~0, and the
+    healthy frames of the batch match the plain factorization."""
+    rng = np.random.default_rng(15)
+    M = 16
+    G = rng.normal(size=(M, M - 3))
+    good = G @ G.T + M * np.eye(M)
+    bad = G @ G.T  # rank M - 3
+    for dtype in (jnp.float32, jnp.float64):
+        L = np.asarray(chol_batched(jnp.asarray(np.stack([good, bad]), dtype),
+                                    clamp=1e-8), np.float64)
+        assert np.isfinite(L).all()
+        np.testing.assert_allclose(L[0], np.linalg.cholesky(good),
+                                   rtol=1e-4 if dtype == jnp.float32 else 1e-10)
+        frozen = np.flatnonzero(np.diagonal(L[1]) > 1e9)
+        assert len(frozen) >= 1
+        for j in frozen:
+            assert np.abs(L[1][j + 1:, j]).max(initial=0.0) < 1e-8
+        Y = np.asarray(trsm_lower_batched(jnp.asarray(L, dtype),
+                                          jnp.asarray(rng.normal(size=(2, M, 3)), dtype)))
+        assert np.isfinite(Y).all()
+
+
 def test_small_block_kernels_random():
     rng = np.random.default_rng(5)
     for d in (2, 3, 6):

@@ -12,7 +12,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(script, *args, timeout=600):
-    env = dict(os.environ, SLAMPP_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "examples", script), *args],
         capture_output=True, text=True, timeout=timeout, env=env, cwd=ROOT,
